@@ -12,9 +12,9 @@ dispatch latency.  Optional ``--trace DIR`` captures a ``jax.profiler``
 trace of a short chain of each variant for scheduler-level evidence.
 
 On a single-device mesh the ppermute is degenerate — the A/B is only
-meaningful on >= 2 devices (a real multi-chip slice, or the virtual
-8-device CPU mesh, which validates the schedule shapes but not ICI
-timing; the JSON notes which).
+meaningful on >= 2 devices (several GPUs, or the virtual 8-device CPU
+mesh, which validates the schedule shapes but not interconnect timing;
+the JSON notes which).
 
     python -m benchmarks.overlap_ab [--n 4096] [--trace DIR]
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
                        sharding)
 
     def fence(x):
-        np.asarray(jax.device_get(x)).ravel()[:1]
+        jax.block_until_ready(x)
 
     # bitwise equivalence of the two schedules
     y_ov = chain(2, True)(u, b)
@@ -117,10 +117,10 @@ def main(argv=None) -> int:
     rec["speedup_overlap"] = results["no_overlap"] / results["overlap"]
     if p == 1:
         rec["note"] = ("single-device mesh: ppermute degenerate, A/B not "
-                       "meaningful — run on a multi-chip slice")
+                       "meaningful — run on several devices")
     elif jax.default_backend() == "cpu":
         rec["note"] = ("virtual CPU devices: validates schedule shapes, "
-                       "not ICI overlap timing")
+                       "not interconnect overlap timing")
     print(json.dumps(rec))
     return 0
 

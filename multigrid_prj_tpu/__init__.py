@@ -1,14 +1,13 @@
-"""multigrid_prj_tpu — a TPU-native multigrid sparse linear-algebra framework.
+"""multigrid_prj_tpu — a JAX multigrid sparse linear-algebra framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 C++ project ``Stefo01/multigrid_prj`` (see SURVEY.md): geometric multigrid on
 matrix-free 2D/3D Poisson stencils, classical algebraic multigrid (strength
 graph, coarsening, direct interpolation, Galerkin RAP), Jacobi / red-black
 Gauss-Seidel / BiCGSTAB smoothers, P1 finite-element assembly from gmsh
 ``.msh`` meshes, ``.mtx``/VTU I/O and convergence monitoring — redesigned
-TPU-first: fused stencil sweeps, sharded block-row partitioning over a
-``jax.sharding.Mesh`` with ICI halo-exchange collectives, and Pallas kernels
-on the hot paths.
+for accelerators: fused stencil sweeps and sharded block-row partitioning
+over a ``jax.sharding.Mesh`` with halo-exchange collectives.
 """
 
 __version__ = "0.1.0"

@@ -41,8 +41,7 @@ def main(argv=None) -> int:
 
     import jax
 
-    if jax.default_backend() == "cpu":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
     import numpy as np
 
     from multigrid_prj_tpu.amg import (
@@ -93,7 +92,7 @@ def main(argv=None) -> int:
 
     # coarse smoothing with residual before/after (debugtest.cpp:229-246)
     Ac, bc = mats[-1], rhss[-1]
-    solver = AMGSolver(Ac, num_levels=1, use_pallas=False, reorder="none")
+    solver = AMGSolver(Ac, num_levels=1)
     x = np.zeros(Ac.shape[0])
     r0 = solver.residual_norm(x, bc)
     print(f"coarse residual before: {r0:.6e}")

@@ -50,8 +50,7 @@ def main(argv=None) -> int:
     p.add_argument("-smoother",
                    choices=("auto", "mcgs", "jacobi", "chebyshev"),
                    default="auto",
-                   help="auto = multicolor GS on CPU, Chebyshev on TPU "
-                        "(the SpMV-based smoother rides the Pallas kernel)")
+                   help="auto = multicolor GS")
     p.add_argument("-hist", default="amg_history.txt",
                    help="residual-history artifact (MGGS4.txt layout); "
                         "'none' to skip")
@@ -63,9 +62,10 @@ def main(argv=None) -> int:
     p.add_argument("-maxit", type=int, default=100)
     p.add_argument("-precision", choices=("auto", "f64", "f32", "ff32"),
                    default="auto",
-                   help="auto = f64 on x64-capable backends (CPU), ff32 "
-                        "iterative refinement on TPU; f32 = plain single "
-                        "precision (residual floor ~eps_f32 * kappa)")
+                   help="auto = f64 (as the all-double reference); ff32 = "
+                        "f32 cycles with float-float iterative refinement; "
+                        "f32 = plain single precision (residual floor "
+                        "~eps_f32 * kappa)")
     p.add_argument("-o", default="output.vtu")
     p.add_argument("--reference-pass", action="store_true",
                    help="run ONE reference-style sawtooth pass (10/200/10 GS "
@@ -74,12 +74,9 @@ def main(argv=None) -> int:
 
     import jax
 
-    if jax.default_backend() == "cpu" and args.precision in ("auto", "f64"):
+    if args.precision in ("auto", "f64"):
         jax.config.update("jax_enable_x64", True)
-    if args.precision == "f64" and not jax.config.jax_enable_x64:
-        print("Error: -precision f64 needs an x64-capable backend (CPU); "
-              "TPU has no hardware f64 — use -precision ff32")
-        return 1
+    import jax.numpy as jnp
     import numpy as np
 
     from multigrid_prj_tpu.amg import AMGSolver
@@ -161,15 +158,15 @@ def main(argv=None) -> int:
     solver = AMGSolver(
         A, num_levels=args.levels, theta=args.theta,
         coarsening=args.coarsening, smoother=args.smoother, rhs=rhs,
+        dtype=jnp.float64 if args.precision in ("auto", "f64")
+        else jnp.float32,
     )
     print(f"AMG setup: levels {solver.level_sizes}, "
           f"operator complexity {solver.operator_complexity:.2f}")
     t1 = time.perf_counter()
     print(f"Initialization time: {t1 - t0:.3f} seconds")
 
-    use_ff32 = args.precision == "ff32" or (
-        args.precision == "auto" and not jax.config.jax_enable_x64
-    )
+    use_ff32 = args.precision == "ff32"
     if (args.precision == "f32" and args.tol < 1e-5
             and not args.reference_pass):
         print("Warning: tol below the plain-f32 residual floor "

@@ -27,18 +27,11 @@ def main(argv=None) -> int:
 
     cfg = parse_gmg_args(argv)
 
-    # Numerical parity with the all-double reference needs f64; enable it on
-    # CPU. On TPU (no native f64) run f32 and report what is achievable.
-    if cfg.dtype == "auto":
-        if jax.default_backend() == "cpu":
-            jax.config.update("jax_enable_x64", True)
-            dtype = "float64"
-        else:
-            dtype = "float32"
-    else:
-        dtype = cfg.dtype
-        if dtype == "float64":
-            jax.config.update("jax_enable_x64", True)
+    # Numerical parity with the all-double reference needs f64, which the
+    # CPU and the GPU both have: "auto" means f64.
+    dtype = "float64" if cfg.dtype == "auto" else cfg.dtype
+    if dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
 
     import jax.numpy as jnp
 

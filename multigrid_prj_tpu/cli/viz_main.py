@@ -82,8 +82,7 @@ def main(argv=None) -> int:
     if args.gif:
         import jax
 
-        if jax.default_backend() == "cpu":
-            jax.config.update("jax_enable_x64", True)
+        jax.config.update("jax_enable_x64", True)
         import jax.numpy as jnp
 
         from multigrid_prj_tpu.gmg import GMGSolver

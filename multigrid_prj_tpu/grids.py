@@ -6,9 +6,9 @@ Capability parity with the reference's ``SquareDomain``
 subset of the finest grid's index space (``domain.cpp:9-12`` halves the width
 per level, ``domain.hpp:78-80`` maps coarse index -> fine index).
 
-TPU-native design: a level is *metadata only* (shape + spacing) — solution /
+Design: a level is *metadata only* (shape + spacing) — solution /
 rhs / residual vectors live as dense ``(n, n)`` (2D) or ``(n, n, n)`` (3D)
-arrays per level, so every stencil op is a fused XLA/Pallas array pass instead
+arrays per level, so every stencil op is a fused XLA array pass instead
 of the reference's per-row index arithmetic.  The reference's ``mask`` trick
 (coarse index -> fine index, ``domain.hpp:78-80``) becomes ``[::2]`` striding.
 """
@@ -80,9 +80,9 @@ def build_hierarchy(
     Mirrors ``main.cpp:32-35`` (one ``SquareDomain`` per level).  Raises if a
     requested level would drop below ``min_size`` nodes per axis.
 
-    ``pad_align``: enable the tile-aligned layout — the finest physical
-    buffer rounds ``n + 1`` up to a multiple of ``pad_align`` (e.g. 256 for
-    Pallas (8, 128) tiling with headroom), and each coarser padded buffer is
+    ``pad_align``: enable the aligned layout — the finest physical
+    buffer rounds ``n + 1`` up to a multiple of ``pad_align`` (e.g. 256),
+    and each coarser padded buffer is
     exactly half, until the slack runs out (``P < n + 1``) after which levels
     store exact (unpadded) arrays.  A per-axis tuple is accepted — the
     natural 3D choice aligns only the lane axis to 128 and the others to 8

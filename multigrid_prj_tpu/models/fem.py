@@ -26,7 +26,7 @@ Capability parity with the reference's FEM layer (``AMG/``):
 * **VTU export** (``FEM.cpp:318-412``): XML ``UnstructuredGrid`` with the
   point scalar ``u`` — boundary nodes get ``g``, interior get the solution.
 
-TPU-native design: assembly is fully vectorised over elements (the
+Design: assembly is fully vectorised over elements (the
 reference's per-element scatter loop becomes batched geometry + one
 duplicate-summing COO->CSR compression); the assembled operator then ships
 to device as ELL for the AMG solve phase.
@@ -174,13 +174,12 @@ def structured_unit_square_mesh(n: int) -> TriangularMesh:
     xs = np.linspace(0.0, 1.0, n)
     X, Y = np.meshgrid(xs, xs, indexing="xy")
     nodes = np.stack([X.ravel(), Y.ravel()], axis=1)
-    tris = []
-    for r in range(n - 1):
-        for c in range(n - 1):
-            a = r * n + c
-            b, d, e = a + 1, a + n, a + n + 1
-            tris.append(sorted((a, b, d)))
-            tris.append(sorted((b, e, d)))
+    # per cell (a = lower-left node): triangles (a, a+1, a+n) and
+    # (a+1, a+n, a+n+1), vertex ids ascending
+    a = (np.arange(n - 1)[:, None] * n + np.arange(n - 1)[None, :]).ravel()
+    tris = np.stack([np.stack([a, a + 1, a + n], axis=1),
+                     np.stack([a + 1, a + n, a + n + 1], axis=1)],
+                    axis=1).reshape(-1, 3)
     on_b = (
         (nodes[:, 0] == 0) | (nodes[:, 0] == 1)
         | (nodes[:, 1] == 0) | (nodes[:, 1] == 1)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native runtime library (``native/mgtpu.cpp``).
 
-The compute path is XLA/Pallas; this library accelerates the host-side
+The compute path is XLA; this library accelerates the host-side
 runtime the reference wrote in C++ — the gmsh data loader, COO->CSR
 compression, and the sequential setup-phase graph algorithms (greedy
 coloring, RCM, the reference's greedy coarsening).  Every entry point has a

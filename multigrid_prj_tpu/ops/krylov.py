@@ -3,7 +3,7 @@
 Parity with the reference ``BiCGSTAB``
 (``GeometricMultigrid/include/solvers.hpp:86-216``): unpreconditioned
 BiCGSTAB with relative tolerance ``1e-11`` and ``maxit = n`` by default,
-stopping on breakdown of ``rho`` or ``omega``.  The TPU-native version is
+stopping on breakdown of ``rho`` or ``omega``.  This version is
 matrix-free (``A`` is any callable) and adds optional right preconditioning
 (``M``), which is how a multigrid cycle becomes a Krylov preconditioner —
 the sane replacement for the reference's quirk of running BiCGSTAB in the
@@ -32,7 +32,9 @@ class KrylovResult:
 
 
 def _dot(a, b):
-    return jnp.vdot(a.reshape(-1), b.reshape(-1))
+    # HIGHEST: a float32 dot may otherwise run in TF32 on GPUs
+    return jnp.vdot(a.reshape(-1), b.reshape(-1),
+                    precision=jax.lax.Precision.HIGHEST)
 
 
 def bicgstab(

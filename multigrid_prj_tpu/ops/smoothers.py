@@ -4,7 +4,7 @@ Capability parity with the reference smoothers:
 
 * ``Gauss_Seidel_iteration`` (``GeometricMultigrid/include/solvers.hpp:24-49``)
   — the reference sweeps lexicographically in place, which is inherently
-  sequential.  The TPU-native equivalent is **red-black Gauss-Seidel**: the
+  sequential.  The data-parallel equivalent is **red-black Gauss-Seidel**: the
   5/7-point stencil is 2-colorable, so each color's update is an independent
   vectorised half-sweep (two fused array passes per sweep).  Smoothing quality
   on Poisson matches or beats lexicographic GS (validated against the

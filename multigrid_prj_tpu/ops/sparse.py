@@ -1,5 +1,5 @@
 """Sparse-matrix containers and kernels: host-side CSR for setup-phase graph
-algorithms, device-side ELL/COO for TPU SpMV.
+algorithms, device-side ELL/COO for SpMV.
 
 Capability parity with the reference's sparse layer:
 
@@ -14,16 +14,14 @@ Capability parity with the reference's sparse layer:
   :func:`rap` — a fully vectorised expansion SpGEMM instead of the
   reference's O(N * Nc) dense-index probing loops.
 
-TPU-native design: the *setup* phase (symbolic structure, coarsening,
-SpGEMM) runs once on the host in vectorised NumPy — mirroring the
-reference's setup/solve split — while the *solve* phase streams a fixed
-sparsity pattern on device.  The device format is ELL (rows padded to a
-fixed ``K`` nonzeros): ``y = sum_k vals[:, k] * x[cols[:, k]]`` is a dense
-gather + multiply-add that XLA vectorises over (8, 128) tiles, with padding
-entries pointing at column 0 with value 0.  The XLA gather lowering is slow
-on TPU (~2 Gnnz/s measured on v5e); the banded-window Pallas kernel in
-``ops/pallas_spmv.py`` (``PallasELL``) replaces it on the hot path, with
-this implementation as the universal fallback.
+Design: the *setup* phase (symbolic structure, coarsening, SpGEMM) runs
+once on the host in vectorised NumPy — mirroring the reference's
+setup/solve split — while the *solve* phase streams a fixed sparsity
+pattern on device.  The device format is ELL (rows padded to a fixed ``K``
+nonzeros): ``y = sum_k vals[:, k] * x[cols[:, k]]`` is one gather +
+multiply-add + row reduction that XLA fuses into a single loop, with
+padding entries pointing at column 0 with value 0.  :func:`coo_spmv` is the
+segment-sum alternative for matrices with very uneven row lengths.
 """
 
 from __future__ import annotations
@@ -286,7 +284,7 @@ def rap(P: HostCSR, A: HostCSR) -> HostCSR:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class ELLMatrix:
-    """Row-padded sparse matrix for TPU SpMV.
+    """Row-padded sparse matrix for device SpMV.
 
     ``cols[i, k]`` / ``vals[i, k]`` hold the k-th nonzero of row i; padding
     slots have ``cols = 0, vals = 0`` so the padded gather-multiply is exact.

@@ -1,27 +1,27 @@
 """Float-float ("ff32") extended precision for the SPARSE (ELL) path.
 
-Why: TPUs have no hardware f64, and a plain-f32 AMG V-cycle stalls at a
-relative residual ``~eps_f32 * kappa(A)`` — for the FEM matrices this floor
-sits well above the reference's 1e-10 tolerances.  ``ops/extended.py``
+Why: a plain-f32 AMG V-cycle stalls at a relative residual
+``~eps_f32 * kappa(A)`` — for the FEM matrices this floor sits well above
+the reference's 1e-10 tolerances.  ``ops/extended.py``
 solves this for the *stencil* path, where the scaled-operator form turns
 every extended operation into an addition.  A general sparse matrix has
 arbitrary coefficients, so the residual here needs *error-free products*:
 
     r = b - A x,   A x = sum_k vals[:, k] * x[cols[:, k]]
 
-Each product uses Dekker's two_prod with Veltkamp splitting (exact without
-FMA — TPU VPU multiplies round correctly, which is all two_prod assumes),
-and the sum is a cascaded Knuth two_sum chain over the K ELL slots.  The
-matrix itself is carried as an unevaluated pair ``vals = hi + lo``
-(re-quantized from the f64 host setup values), and so is the iterate
-``x = x_hi + x_lo`` — the classic iterative-refinement split, TPU-native.
+Each product uses Dekker's two_prod (``ops/extended.py``; its split masks
+mantissa bits, so it stays exact under FMA contraction), and the sum is a
+cascaded Knuth two_sum chain over the K ELL slots.  The matrix itself is
+carried as an unevaluated pair ``vals = hi + lo`` (re-quantized from the
+f64 host setup values), and so is the iterate ``x = x_hi + x_lo`` — the
+classic iterative-refinement split.
 
 Cost: ~6 flops per nonzero instead of 2 — irrelevant, the op is
 HBM-bound and the extended residual streams the same bytes (+ the lo
 arrays) once per outer refinement step.
 
 Reference capability: the all-f64 CSR residuals
-(``AMG/include/AMG.hpp:397-442``) on hardware with no f64.
+(``AMG/include/AMG.hpp:397-442``) from f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -33,26 +33,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multigrid_prj_tpu.ops.extended import fast_two_sum, two_sum
+from multigrid_prj_tpu.ops.extended import fast_two_sum, two_prod, two_sum
 from multigrid_prj_tpu.ops.sparse import ELLMatrix, HostCSR
-
-_SPLIT = 4097.0  # 2^12 + 1: Veltkamp split constant for f32 (24-bit mantissa)
-
-
-def veltkamp_split(a):
-    """Exact split ``a = hi + lo`` with both halves ~12-bit mantissas."""
-    c = _SPLIT * a
-    hi = c - (c - a)
-    return hi, a - hi
-
-
-def two_prod(a, b):
-    """Dekker exact product: returns (p, err) with ``a * b == p + err``."""
-    p = a * b
-    ah, al = veltkamp_split(a)
-    bh, bl = veltkamp_split(b)
-    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, err
 
 
 @jax.tree_util.register_dataclass

@@ -8,12 +8,11 @@ Capability parity with the reference's ``PoissonMatrix``
 * interior off-diagonals are ``-alpha / h^2`` for the axis neighbors
   (``:37-38``).
 
-TPU-native design: the operator is never materialised.  It is applied as a
-fused elementwise pass over the dense ``(n, ..., n)`` grid array built from
+Design: the operator is never materialised.  It is applied as a fused
+elementwise pass over the dense ``(n, ..., n)`` grid array built from
 shifted zero-padded slices — XLA fuses the shifts, the select against the
-boundary mask, and any surrounding axpy into a single VPU loop, so one apply
-streams ``u`` once from HBM and writes the result once (the performance model
-the Pallas kernel in ``ops/pallas_stencil.py`` makes explicit).
+boundary mask, and any surrounding axpy into one loop, so one apply
+streams ``u`` once from device memory and writes the result once.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ Capability parity with the reference:
   interpolation.  ``prolong`` implements exactly that as an axis-by-axis
   linear refinement (bilinear in 2D, trilinear in 3D).
 
-TPU-native design: both directions are strided-slice / interleave array ops
-that XLA lowers to contiguous VMEM copies — no index masks, no scalar loops.
+Design: both directions are strided-slice / interleave array ops that XLA
+fuses into loops over the grid — no index masks, no scalar loops.
 """
 
 from __future__ import annotations
@@ -145,7 +145,7 @@ def prolong(e: jax.Array, fine_shape: tuple[int, ...]) -> jax.Array:
 # the fine buffer per axis, coarse dead entries are written as zeros, and
 # prolongation emits zeros into the fine dead zone (given zero coarse dead
 # entries).  This gives the odd-size convergence quality (true boundary
-# alignment at every level) in buffers that satisfy Pallas/sharding tiling.
+# alignment at every level) in buffers whose extents suit sharding.
 # ---------------------------------------------------------------------------
 
 

@@ -1,19 +1,17 @@
 """Multi-host bring-up and mesh construction.
 
 The reference has no distributed execution (MPI discovery commented out,
-``common/cmake-common.cmake:17-19``); this is the TPU-native layer SURVEY.md
-§5 prescribes: single-controller-per-host JAX via
-``jax.distributed.initialize``, and a device mesh with a fast intra-slice
-ICI axis ``"x"`` plus an optional slow cross-host DCN axis ``"dcn"``.
+``common/cmake-common.cmake:17-19``); this is the layer SURVEY.md §5
+prescribes: single-controller-per-host JAX via
+``jax.distributed.initialize``, and a device mesh with a fast intra-host
+axis ``"x"`` plus an optional cross-host axis ``"dcn"``.  The devices of
+one host (e.g. four GPUs joined all to all by NVLink) form the 1D
+``("x",)`` mesh; the 2D mesh is for several hosts.
 
 Bring-up is env-driven and a NO-OP on a single host, so the same entry
-points work everywhere:
-
-* ``JAX_COORDINATOR_ADDRESS`` (host:port), ``JAX_NUM_PROCESSES``,
-  ``JAX_PROCESS_ID`` — explicit wiring;
-* on managed TPU pods, ``jax.distributed.initialize()`` auto-detects and
-  these variables are unnecessary — set ``MGTPU_DISTRIBUTED=1`` to request
-  the auto-detect path.
+points work everywhere: set ``JAX_COORDINATOR_ADDRESS`` (host:port),
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` to wire several processes
+together.
 """
 
 from __future__ import annotations
@@ -38,16 +36,12 @@ def maybe_initialize_distributed() -> bool:
     if _initialized:
         return jax.process_count() > 1
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    auto = os.environ.get("MGTPU_DISTRIBUTED") == "1"
     if coord:
         jax.distributed.initialize(
             coordinator_address=coord,
             num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
             process_id=int(os.environ["JAX_PROCESS_ID"]),
         )
-        _initialized = True
-    elif auto:
-        jax.distributed.initialize()
         _initialized = True
     return _initialized and jax.process_count() > 1
 
@@ -56,13 +50,13 @@ def make_mesh(n_ici: int | None = None, n_dcn: int = 1,
               devices=None) -> Mesh:
     """Device mesh for the sharded solvers.
 
-    ``n_dcn == 1``: a 1D ``("x",)`` mesh (single slice / single host).
+    ``n_dcn == 1``: a 1D ``("x",)`` mesh (single host).
     ``n_dcn > 1``: a 2D ``("dcn", "x")`` mesh — the leading grid axis is
-    sharded dcn-major so halo ppermutes ride ICI except at group edges.
+    sharded dcn-major so halo ppermutes stay within a host except at group
+    edges.
 
-    Default device order is ``jax.devices()``, which JAX arranges so that
-    consecutive devices are ICI neighbors within a host/slice — exactly the
-    layout the dcn-major row partition wants.
+    Default device order is ``jax.devices()``, which lists each host's
+    devices contiguously — the layout the dcn-major row partition wants.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     if n_ici is None:

@@ -3,7 +3,7 @@ halo exchange over a 1D device mesh.
 
 The reference's AMG is single-process (OpenMP loop pragmas only, SURVEY.md
 §2.4); the row-partitionable CSR (``AMG/include/CSRMatrix.hpp:62-121``) is
-the structure this layer distributes, TPU-natively:
+the structure this layer distributes:
 
 * the solver RCM-reorders the system (``HostCSR.rcm_permutation``), so every
   level's matrix is BANDED; a block-row partition then needs only a narrow
@@ -12,7 +12,7 @@ the structure this layer distributes, TPU-natively:
   :class:`ShardedELL`: rows partitioned over mesh axis ``"x"``, column ids
   stored RELATIVE to the owner's input block minus its halo, so the local
   apply is one gather into ``concat(left_halo, x_local, right_halo)``;
-* halos move via ``jax.lax.ppermute`` (fixed-neighbor ICI transfers); the
+* halos move via ``jax.lax.ppermute`` (fixed-neighbor transfers); the
   halo width per level is measured at setup from the actual band — a level
   whose band exceeds one neighbor block falls back to replicated execution
   (standard practice: deep levels are tiny);
@@ -140,105 +140,6 @@ def sharded_ell_apply(m: ShardedELL, x_local: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Pallas-backed local apply (the round-3 composition: the distributed solver
-# rides the single-chip ELL kernel on each shard instead of the ~13x-slower
-# jnp.take gather — ops/pallas_spmv.py)
-# ---------------------------------------------------------------------------
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass
-class PallasShardedELL:
-    """Per-shard slot-major banded-window layouts, stacked on a leading
-    shard axis so ``shard_map`` hands each device exactly its own block.
-
-    ``colsT[s]`` holds shard ``s``'s column ids relative to its lane tile's
-    window base within the shard's extended input
-    ``concat(left_halo, x_local, right_halo)`` (the :class:`ShardedELL`
-    halo contract); statics are unified across shards (max t_win etc.) so
-    one traced program serves all of them.
-    """
-
-    colsT: jax.Array  # (p, K_pad, R_pad) int16
-    valsT: jax.Array  # (p, K_pad, R_pad)
-    base2: jax.Array  # (p, R_pad // 128) int32
-    t_win: int = dataclasses.field(metadata=dict(static=True))
-    m_pad: int = dataclasses.field(metadata=dict(static=True))
-    block_rows: int = dataclasses.field(metadata=dict(static=True))
-    interpret: bool = dataclasses.field(default=False,
-                                        metadata=dict(static=True))
-
-
-def build_pallas_sharded(
-    m: ShardedELL, p: int, dtype, max_t_win: int = 32,
-    interpret: bool = False,
-) -> Optional[PallasShardedELL]:
-    """Build the per-shard kernel layout from a :class:`ShardedELL`;
-    ``None`` when any shard's window is too wide (caller keeps the gather).
-    """
-    lane = 128
-    cols = np.asarray(m.cols_rel, dtype=np.int64)  # (out_n_pad, K), x_ext ids
-    vals = np.asarray(m.vals, dtype=np.float64)
-    out_n_pad, k = cols.shape
-    R = m.out_rows
-    if out_n_pad % R or R % 8:
-        return None
-    k_pad = max(8, -(-k // 8) * 8)
-    block_rows = min(16384, -(-R // 1024) * 1024)
-    R_pad = -(-R // block_rows) * block_rows
-    ext_len = m.in_rows + 2 * m.halo
-    colsT = np.zeros((p, k_pad, R_pad), dtype=np.int16)
-    valsT = np.zeros((p, k_pad, R_pad), dtype=np.float64)
-    base2 = np.zeros((p, R_pad // lane), dtype=np.int32)
-    t_win = 1
-    for s in range(p):
-        c = np.full((R_pad, k_pad), m.halo, dtype=np.int64)  # pad -> local
-        v = np.zeros((R_pad, k_pad))
-        c[:R, :k] = cols[s * R:(s + 1) * R]
-        # slot padding: repeat the row's first col so windows stay narrow
-        c[:R, k:] = c[:R, :1]
-        c[R:, :] = c[R - 1 if R else 0, :1]
-        v[:R, :k] = vals[s * R:(s + 1) * R]
-        tile_of = (c >> 7).reshape(R_pad // lane, lane, k_pad)
-        lo = tile_of.min(axis=(1, 2)).astype(np.int32)
-        hi = tile_of.max(axis=(1, 2))
-        t_win = max(t_win, int((hi - lo).max()) + 1)
-        rel = c - (lo.astype(np.int64).repeat(lane))[:, None] * lane
-        colsT[s] = rel.T.astype(np.int16)
-        valsT[s] = v.T
-        base2[s] = lo
-    if t_win > max_t_win:
-        return None
-    m_pad = (-(-ext_len // lane) + max(8, t_win)) * lane
-    return PallasShardedELL(
-        colsT=jnp.asarray(colsT),
-        valsT=jnp.asarray(valsT, dtype=dtype),
-        base2=jnp.asarray(base2),
-        t_win=t_win,
-        m_pad=m_pad,
-        block_rows=block_rows,
-        interpret=interpret,
-    )
-
-
-def pallas_sharded_apply(pm: PallasShardedELL, m: ShardedELL,
-                         x_local: jax.Array, axis: str = AXIS) -> jax.Array:
-    """``y_local = (A x)_local`` via the Pallas kernel on the local shard
-    (same halo contract as :func:`sharded_ell_apply`)."""
-    from multigrid_prj_tpu.ops.pallas_spmv import ell_local_spmv2d
-
-    x_ext = _exchange_halos(m, x_local, axis)
-    dtype = pm.valsT.dtype
-    xp = jnp.zeros((pm.m_pad,), dtype).at[: x_ext.shape[0]].set(
-        x_ext.astype(dtype))
-    y2d = ell_local_spmv2d(
-        pm.base2[0], pm.colsT[0], pm.valsT[0], xp.reshape(-1, 128),
-        t_win=pm.t_win, block_rows=pm.block_rows, interpret=pm.interpret,
-    )
-    return y2d.reshape(-1)[: m.out_rows].astype(x_local.dtype)
-
-
-# ---------------------------------------------------------------------------
 # Sharded level + solver
 # ---------------------------------------------------------------------------
 
@@ -251,18 +152,6 @@ class ShardedAMGLevel:
     lmax: float = dataclasses.field(metadata=dict(static=True))
     P: Optional[ShardedELL] = None  # coarse -> this level
     Pt: Optional[ShardedELL] = None  # this level -> coarse
-    # Pallas-kernel layouts (None -> the jnp.take gather path)
-    A_fast: Optional[PallasShardedELL] = None
-    P_fast: Optional[PallasShardedELL] = None
-    Pt_fast: Optional[PallasShardedELL] = None
-
-
-def apply_sharded(m: ShardedELL, fast: Optional[PallasShardedELL],
-                  x_local: jax.Array, axis: str = AXIS) -> jax.Array:
-    """Local operator apply, via the Pallas kernel when prepared."""
-    if fast is not None:
-        return pallas_sharded_apply(fast, m, x_local, axis)
-    return sharded_ell_apply(m, x_local, axis)
 
 
 def _leaf_spec(x):
@@ -298,15 +187,9 @@ class ShardedAMGSolver:
         dtype=jnp.float32,
         tol: float = 1e-8,
         maxit: int = 100,
-        use_pallas: bool | str = "auto",
-        pallas_interpret: bool = False,
     ):
         from multigrid_prj_tpu.amg import _estimate_lmax
 
-        if use_pallas == "auto":
-            use_pallas = jax.default_backend() == "tpu"
-        self._use_pallas = bool(use_pallas) and dtype == jnp.float32
-        self._pallas_interpret = pallas_interpret
         self.mesh = mesh
         self.p = int(mesh.devices.size)
         self.dtype = dtype
@@ -373,12 +256,6 @@ class ShardedAMGSolver:
 
         self.sharded_levels: List[ShardedAMGLevel] = []
 
-        def _fast(sh_ell):
-            if not self._use_pallas or sh_ell is None:
-                return None
-            return build_pallas_sharded(sh_ell, self.p, dtype,
-                                        interpret=self._pallas_interpret)
-
         for l in range(num_sharded):
             M = self.host_matrices[l]
             lmax = _estimate_lmax(M) if smoother == "chebyshev" else 0.0
@@ -393,9 +270,6 @@ class ShardedAMGSolver:
                 lmax=float(lmax),
                 P=P_sh,
                 Pt=Pt_sh,
-                A_fast=_fast(A_sh),
-                P_fast=_fast(P_sh),
-                Pt_fast=_fast(Pt_sh),
             ))
 
         # replicated tail: plain ELL levels from num_sharded down
@@ -441,7 +315,7 @@ class ShardedAMGSolver:
             if self.smoother_name == "chebyshev":
                 x = self._cheb(lvl, x, b)
             else:
-                r = b - apply_sharded(lvl.A, lvl.A_fast, x)
+                r = b - sharded_ell_apply(lvl.A, x)
                 x = x + (2.0 / 3.0) * r * lvl.inv_diag
         return x
 
@@ -452,12 +326,12 @@ class ShardedAMGSolver:
         delta = 0.5 * (lmax - lmin)
         sigma = theta / delta
         rho = 1.0 / sigma
-        r = b - apply_sharded(lvl.A, lvl.A_fast, x)
+        r = b - sharded_ell_apply(lvl.A, x)
         p_ = (r * lvl.inv_diag) / theta
         x = x + p_
         for _ in range(self.cheb_degree - 1):
             rho_new = 1.0 / (2.0 * sigma - rho)
-            r = b - apply_sharded(lvl.A, lvl.A_fast, x)
+            r = b - sharded_ell_apply(lvl.A, x)
             p_ = (rho_new * rho) * p_ + (2.0 * rho_new / delta) * (
                 r * lvl.inv_diag
             )
@@ -506,8 +380,8 @@ class ShardedAMGSolver:
     def _v_local(self, x, b, levels: Tuple[ShardedAMGLevel, ...], l: int):
         lvl = levels[l]
         x = self._smooth(lvl, x, b, self.nu1)
-        r = b - apply_sharded(lvl.A, lvl.A_fast, x)
-        rc = apply_sharded(lvl.Pt, lvl.Pt_fast, r)
+        r = b - sharded_ell_apply(lvl.A, x)
+        rc = sharded_ell_apply(lvl.Pt, r)
         if l + 1 < self.num_sharded:
             ec = self._v_local(jnp.zeros_like(rc), rc, levels, l + 1)
         else:
@@ -521,7 +395,7 @@ class ShardedAMGSolver:
             i = lax.axis_index(AXIS)
             rows_c = self.n_pads[self.num_sharded] // self.p
             ec = lax.dynamic_slice_in_dim(e_pad, i * rows_c, rows_c)
-        x = x + apply_sharded(lvl.P, lvl.P_fast, ec)
+        x = x + sharded_ell_apply(lvl.P, ec)
         return self._smooth(lvl, x, b, self.nu2)
 
     def _solve_local(self, b, levels):
@@ -529,7 +403,7 @@ class ShardedAMGSolver:
         b2 = lax.psum(jnp.sum(b * b), AXIS)
 
         def rel2(x):
-            r = b - apply_sharded(lvl0.A, lvl0.A_fast, x)
+            r = b - sharded_ell_apply(lvl0.A, x)
             return lax.psum(jnp.sum(r * r), AXIS)
 
         tol2 = jnp.asarray(self.tol**2, b.dtype)

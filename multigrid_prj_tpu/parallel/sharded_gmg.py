@@ -1,17 +1,18 @@
-"""Multi-chip geometric multigrid: block-slab sharding + ICI/DCN halo
-exchange, for 2D and 3D grids.
+"""Multi-device geometric multigrid: block-slab sharding + halo exchange,
+for 2D and 3D grids.
 
 This is the distribution layer the reference never had (its only parallelism
-was OpenMP loop pragmas, SURVEY.md §2.4).  TPU-native design, following the
-standard JAX recipe:
+was OpenMP loop pragmas, SURVEY.md §2.4).  Design, following the standard
+JAX recipe:
 
 * the fine grid (``(n, m)`` or ``(n, m, k)``) is block-sharded on its
   LEADING axis over the mesh — rows in 2D, slabs in 3D;
-* the mesh may be 1D (``("x",)`` — a single ICI ring) or 2D
-  (``("dcn", "x")`` — multi-host: "x" is the fast intra-slice ICI axis,
-  "dcn" the slow cross-host axis).  Slabs are laid out dcn-major, so
-  almost every halo exchange is a fixed-neighbor ``ppermute`` riding ICI;
-  only the per-group edge slab crosses DCN (one extra ppermute pair);
+* the mesh may be 1D (``("x",)`` — the devices of one host, e.g. GPUs
+  joined all to all by NVLink) or 2D (``("dcn", "x")`` — multi-host: "x"
+  is the fast intra-host axis, "dcn" the slower cross-host network).
+  Slabs are laid out dcn-major, so almost every halo exchange is a
+  fixed-neighbor ``ppermute`` within a host; only the per-group edge slab
+  crosses hosts (one extra ppermute pair);
 * every stencil/smoother sweep exchanges ONE halo slab per neighbor; the
   sweep is split into an INTERIOR part (no remote dependence — XLA's
   latency-hiding scheduler overlaps it with the in-flight ppermute) and the
@@ -45,7 +46,7 @@ from multigrid_prj_tpu.grids import GridLevel, build_hierarchy
 from multigrid_prj_tpu.ops.smoothers import make_smoother
 from multigrid_prj_tpu.ops.transfer import _fw_axis, _refine_axis
 
-AXIS = "x"  # the fast (ICI) axis; an optional "dcn" axis majors it
+AXIS = "x"  # the fast intra-host axis; an optional "dcn" axis majors it
 
 
 def row_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -77,9 +78,9 @@ def _halo_slabs(u: jax.Array, axes: Tuple[str, ...], w: int = 1):
     """(top, bottom) neighbor halo slabs of ``w`` rows; zeros at the global
     ends.
 
-    1D mesh: one ppermute pair on the ICI axis.  2D (dcn, x) mesh: the
-    within-group edges ride ICI; each group's boundary slab additionally
-    crosses the DCN axis (bounced via the group's ici-0 / ici-last shard).
+    1D mesh: one ppermute pair on the "x" axis.  2D (dcn, x) mesh: the
+    within-group edges stay on "x"; each group's boundary slab additionally
+    crosses the "dcn" axis (bounced via the group's x-0 / x-last shard).
     """
     ici = axes[-1]
     pi = lax.axis_size(ici)
@@ -89,11 +90,11 @@ def _halo_slabs(u: jax.Array, axes: Tuple[str, ...], w: int = 1):
         dcn = axes[0]
         pd = lax.axis_size(dcn)
         if pd > 1:
-            # group d's LAST slab -> group d+1's ici-0 shard (its top halo):
-            # bounce to ici 0 within the group, then one DCN hop.
+            # group d's LAST slab -> group d+1's x-0 shard (its top halo):
+            # bounce to x-0 within the group, then one "dcn" hop.
             t1 = lax.ppermute(u[-w:], ici, [(pi - 1, 0)])
             t2 = lax.ppermute(t1, dcn, [(d, d + 1) for d in range(pd - 1)])
-            # group d's FIRST slab -> group d-1's ici-last shard (bottom halo)
+            # group d's FIRST slab -> group d-1's x-last shard (bottom halo)
             b1 = lax.ppermute(u[:w], ici, [(0, pi - 1)])
             b2 = lax.ppermute(b1, dcn, [(d, d - 1) for d in range(1, pd)])
             ii = lax.axis_index(ici)
@@ -178,30 +179,8 @@ def residual_local(u, b, alpha, h, global_shape, axes):
     return b - poisson_apply_local(u, alpha, h, global_shape, axes)
 
 
-def rbgs_local_pallas(u, b, alpha, h, global_shape, axes, sweeps: int = 1):
-    """Fused-Pallas red-black GS on the local shard: ONE 8-row halo exchange
-    per fused group of up to 4 sweeps, then the temporally-blocked kernel
-    (``ops/pallas_stencil.rbgs_fused_extended``) replays the halo rows'
-    updates locally — the multi-chip composition of the single-chip fused
-    smoother (the round-2 gap: distributed execution forfeited the Pallas
-    throughput).  Equal to :func:`rbgs_local` up to f32 association order.
-    """
-    from multigrid_prj_tpu.ops import pallas_stencil as ps
-
-    R = u.shape[0]
-    row0 = global_shard_index(axes) * R - 8
-    bt, bb = _halo_slabs(b, axes, 8)  # b is loop-constant: exchange once
-    full, rem = divmod(sweeps, 4)
-    for s in [4] * full + ([rem] if rem else []):
-        ut, ub = _halo_slabs(u, axes, 8)
-        ue = jnp.concatenate([ut, u, ub], axis=0)
-        be = jnp.concatenate([bt, b, bb], axis=0)
-        u = ps.rbgs_fused_extended(ue, be, row0, global_shape, alpha, h, s)
-    return u
-
-
 def rbgs_local(u, b, alpha, h, global_shape, axes, sweeps: int = 1,
-               overlap: bool = True, pallas: bool = False):
+               overlap: bool = True):
     """Red-black GS, one halo exchange per color pass, interior/edge split
     so the exchange overlaps the interior update (SURVEY §7.4.4).
 
@@ -210,18 +189,7 @@ def rbgs_local(u, b, alpha, h, global_shape, axes, sweeps: int = 1,
     no compute can be issued until the halos arrive) — numerically
     IDENTICAL, used as the A/B baseline by ``benchmarks/overlap_ab.py``
     and ``tests/test_sharded_gmg.py``.
-
-    ``pallas=True`` dispatches supported shards (2D, f32, lanes % 128) to
-    :func:`rbgs_local_pallas`; unsupported shapes keep this XLA path.
     """
-    if pallas:
-        from multigrid_prj_tpu.ops.pallas_stencil import (
-            fused_extended_supported,
-        )
-
-        if u.shape[0] >= 8 and fused_extended_supported(u.shape, u.dtype):
-            return rbgs_local_pallas(u, b, alpha, h, global_shape, axes,
-                                     sweeps)
     c = alpha / (h * h)
     bmask = _boundary_mask_local(u.shape, global_shape, axes)
     coords = _global_coords(u.shape, axes)
@@ -265,7 +233,7 @@ def rbgs_local(u, b, alpha, h, global_shape, axes, sweeps: int = 1,
 
 # ---------------------------------------------------------------------------
 # Wide-halo grouped sweeps: ONE halo exchange per sweep group (+ fused
-# residual/restrict), the XLA analog of :func:`rbgs_local_pallas`.
+# residual/restrict).
 #
 # rbgs_local exchanges halos per COLOR pass (4 ppermutes per sweep on a 1D
 # mesh) and residual/restrict re-exchange twice more — 12 ppermute ops per
@@ -274,8 +242,8 @@ def rbgs_local(u, b, alpha, h, global_shape, axes, sweeps: int = 1,
 # extended block (outer rows go stale by one slab per color pass — the
 # center stays EXACT while ``2*sweeps + 2 <= w``), and the residual +
 # restriction read the still-valid +-1 halo rows: 4 ppermutes per down-leg.
-# The virtual-mesh weak-scaling sweep is dominated by collective count
-# (VERDICT r3 item 6); this is the structural fix.
+# Where per-collective latency times count dominates a cycle, this is the
+# structural fix; where it does not, the per-color schedule is cheaper.
 # ---------------------------------------------------------------------------
 
 _MAX_GROUP_SWEEPS = 4
@@ -377,8 +345,8 @@ def _grouped_sweeps(u, b, alpha, h, global_shape, axes, sweeps: int,
     ``b_halos = (bt_W, bb_W, W)``: pre-exchanged ``W``-slab halos of ``b``
     (``W >=`` any group's width) — ``b`` is the level's RHS, constant
     through a level visit, so the caller exchanges it ONCE and both the
-    down-leg and post-smoothing slice what they need (VERDICT r4 item 5:
-    cuts one ppermute pair per level visit)."""
+    down-leg and post-smoothing slice what they need (one ppermute pair
+    fewer per level visit)."""
     R = u.shape[0]
     gsi = global_shard_index(axes)
     groups = _split_groups(sweeps) or [0]
@@ -512,38 +480,24 @@ class ShardedGMGSolver:
         tol: float = 1e-6,
         maxit: int = 100,
         min_rows_per_shard: int = 8,
-        use_pallas: bool | str = "auto",
-        use_grouped: bool | str = "auto",
+        use_grouped: bool | str = False,
     ):
         if len(shape) not in (2, 3):
             raise ValueError("sharded solver supports 2D and 3D grids")
-        # Pallas fused smoother on the local shards ("auto": on for TPU
-        # backends); per-level shape support is checked at trace time and
-        # unsupported levels fall back to the XLA path individually.
-        if use_pallas == "auto":
-            use_pallas = jax.default_backend() == "tpu"
-        self.use_pallas = bool(use_pallas)
         # Wide-halo grouped sweeps (one exchange per group, fused residual/
-        # restrict): 28 vs 84 collective-permutes per V(2,2) cycle.  "auto"
-        # = True on TPU backends (on real ICI the per-collective latency x
-        # count is the structural cost the grouped schedule exists to cut)
-        # and False on CPU (virtual-device emulation runs collectives as
-        # shared-memory memcpys but schedules the extended-block program
-        # ~10x worse — measured in benchmarks/SCALING_r04.json's
-        # attribution table, which runs BOTH variants).  "measure" A/B-times
-        # one full cycle per schedule ON THE ACTUAL MESH at construction and
-        # picks the faster — the data-driven default VERDICT r4 item 5 asks
-        # for; the decision (and both timings) is recorded in
+        # restrict): 28 vs 84 collective-permutes per V(2,2) cycle, at the
+        # price of redundant compute on the extended blocks.  False = the
+        # per-color schedule.  "measure" A/B-times one full cycle per
+        # schedule ON THE ACTUAL MESH at construction and picks the faster;
+        # the decision (and both timings) is recorded in
         # ``self.schedule_decision``.
+        if use_grouped not in (True, False, "measure"):
+            raise ValueError(f"use_grouped must be True, False or "
+                             f"'measure', not {use_grouped!r}")
         self._measure_schedule_requested = use_grouped == "measure"
-        if use_grouped in ("auto", "measure"):
-            use_grouped = jax.default_backend() == "tpu"
-            decision_mode = "backend-heuristic"
-        else:
-            decision_mode = "explicit"
-        self.use_grouped = bool(use_grouped)
+        self.use_grouped = use_grouped is True
         self.schedule_decision = {
-            "mode": decision_mode,
+            "mode": "fixed",
             "chosen": "grouped" if self.use_grouped else "per_color",
         }
         self.mesh = mesh
@@ -637,42 +591,27 @@ class ShardedGMGSolver:
 
     # -- sharded V-cycle -----------------------------------------------------
 
-    def _pallas_ok(self, u):
-        if not self.use_pallas:
-            return False
-        from multigrid_prj_tpu.ops.pallas_stencil import (
-            fused_extended_supported,
-        )
-
-        return u.shape[0] >= 8 and fused_extended_supported(u.shape, u.dtype)
-
     def _downleg(self, u, b, gshape, h, b_halos=None):
         """Pre-smooth + residual + restrict with the fewest collectives the
         shard shape allows."""
         a, axes = self.alpha, self._axes
-        if self._pallas_ok(u):
-            u = rbgs_local_pallas(u, b, a, h, gshape, axes, self.nu1)
-        elif self.use_grouped and group_supported(u.shape[0], self.nu1,
-                                                  extra=2):
+        if self.use_grouped and group_supported(u.shape[0], self.nu1,
+                                                extra=2):
             return downleg_group_local(u, b, a, h, gshape, axes, self.nu1,
                                        b_halos=b_halos)
-        else:
-            u = rbgs_local(u, b, a, h, gshape, axes, self.nu1)
+        u = rbgs_local(u, b, a, h, gshape, axes, self.nu1)
         r = residual_local(u, b, a, h, gshape, axes)
         return u, restrict_fw_local(r, gshape, axes)
 
     def _postsmooth(self, u, b, gshape, h, resnorm: bool = False,
                     b_halos=None):
         a, axes = self.alpha, self._axes
-        if self._pallas_ok(u):
-            u = rbgs_local_pallas(u, b, a, h, gshape, axes, self.nu2)
-        elif self.use_grouped and group_supported(
+        if self.use_grouped and group_supported(
                 u.shape[0], self.nu2, extra=1 if resnorm else 0):
             return postsmooth_group_local(u, b, a, h, gshape, axes,
                                           self.nu2, resnorm=resnorm,
                                           b_halos=b_halos)
-        else:
-            u = rbgs_local(u, b, a, h, gshape, axes, self.nu2)
+        u = rbgs_local(u, b, a, h, gshape, axes, self.nu2)
         if not resnorm:
             return u
         r = residual_local(u, b, a, h, gshape, axes)
@@ -682,7 +621,7 @@ class ShardedGMGSolver:
         """Exchange b's halos ONCE per level visit when both grouped legs
         will run (b is the level RHS — constant between the down-leg and
         the post-smoothing), at the widest width either requests."""
-        if not self.use_grouped or self._pallas_ok(u):
+        if not self.use_grouped:
             return None
         R = u.shape[0]
         if not (group_supported(R, self.nu1, extra=2)

@@ -43,7 +43,7 @@ class GMGConfig:
     cycle: str = "sawtooth"
     tol: float = 1e-11
     maxit: int = 1000
-    dtype: str = "auto"  # auto: f64 when x64 is enabled, else f32
+    dtype: str = "auto"  # auto: f64 (the reference is all-double)
     pad: int = 0  # tile-aligned padded layout (e.g. 256); 0 = exact layout
 
     @property

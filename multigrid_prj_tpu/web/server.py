@@ -31,7 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 # One solve at a time: ThreadingHTTPServer handles each POST on its own
 # thread, and two concurrent solves would interleave writes to MGGS4.txt /
-# x.mtx (and contend for the single TPU).  The reference has the same
+# x.mtx (and contend for the one accelerator).  The reference has the same
 # serialization implicitly — PHP shells out to one binary at a time per
 # request, writing the same files (``home.php:103,127-128``).
 _SOLVE_LOCK = threading.Lock()
@@ -46,7 +46,7 @@ label {{ display: inline-block; width: 14rem; margin: .25rem 0; }}
 canvas {{ border: 1px solid #ccc; margin-top: 1rem; }}
 </style></head>
 <body>
-<h2>TPU multigrid — geometric solver</h2>
+<h2>JAX multigrid — geometric solver</h2>
 <form id="f">
 <fieldset><legend>Parameters</legend>
 <label>Coarse-grid nodes per side (N)</label><input name="n" value="9"><br>
@@ -165,8 +165,7 @@ class Handler(BaseHTTPRequestHandler):
 def run_solver(form: dict, workdir: str) -> dict:
     import jax
 
-    if jax.default_backend() == "cpu":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import numpy as np
 
@@ -192,8 +191,8 @@ def run_solver(form: dict, workdir: str) -> dict:
     if ml < 1:
         raise ValueError("levels must be >= 1")
 
-    dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-    tol = 1e-11 if dtype == jnp.float64 else 1e-6
+    dtype = jnp.float64
+    tol = 1e-11
     solver = GMGSolver(
         shape=(n, n), length=w, alpha=a, num_levels=ml,
         smoother="jacobi" if smt == 1 else "gs", cycle=cycle, tol=tol,

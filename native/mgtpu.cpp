@@ -1,7 +1,7 @@
 // Native runtime components for multigrid_prj_tpu.
 //
 // The reference implements its whole solver in C++ (GeometricMultigrid/,
-// AMG/).  In the TPU-native design the *compute* path lives in XLA/Pallas;
+// AMG/).  In this design the *compute* path lives in XLA;
 // what stays native are the host-side runtime pieces that feed it — the
 // data loader (gmsh parser replacing AMG/src/FEM.cpp:3-316), sparse-format
 // compression (replacing CSRMatrix::copy_from, AMG/src/CSRMatrix.cpp:3-22),

@@ -1,8 +1,8 @@
 """Test configuration.
 
-Tests run on CPU with 8 virtual devices so sharded code paths are exercised
-without TPU hardware, and with x64 enabled so numerical-parity assertions
-against the all-double reference hold (the reference uses
+Tests run on the CPU with 8 virtual devices so sharded code paths are
+exercised without accelerators, and with x64 enabled so numerical-parity
+assertions against the all-double reference hold (the reference uses
 ``std::vector<double>`` throughout).
 
 Note: platform selection uses ``jax.config`` (not ``JAX_PLATFORMS``) because
@@ -11,19 +11,14 @@ env-derived defaults; config updates still apply as long as no backend has
 been initialised.
 """
 
-import os
-
 import jax
 
-# Force CPU even when the ambient environment points JAX at a TPU — tests
-# must not depend on hardware.  Override with MGTPU_TEST_PLATFORM=tpu.
-jax.config.update("jax_platforms", os.environ.get("MGTPU_TEST_PLATFORM", "cpu"))
+from multigrid_prj_tpu.utils.cache import enable_compile_cache
+
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", True)
 
-# The sandbox has few cores and XLA compiles are slow; the persistent cache
-# makes re-runs of the suite fast.
-_cache_dir = os.path.join(os.path.dirname(__file__), "..", ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", os.path.abspath(_cache_dir))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+# XLA compiles dominate the suite's run time; the persistent cache makes
+# re-runs fast.
+enable_compile_cache()

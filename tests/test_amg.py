@@ -153,7 +153,7 @@ def test_reference_sawtooth_pass_reduces_residual():
 
 
 def test_chebyshev_smoother_and_pcg():
-    """Chebyshev smoothing + AMG-PCG: the TPU-native acceleration pair."""
+    """Chebyshev smoothing + AMG-PCG: the SpMV-only acceleration pair."""
     mesh = structured_unit_square_mesh(17)
     A, rhs = assemble_p1(mesh)
     solver = AMGSolver(A, num_levels=3, smoother="chebyshev")
@@ -215,8 +215,7 @@ def test_amg_refined_history(monkeypatch):
     A = fd_poisson(16)
     rng = np.random.default_rng(3)
     b = rng.standard_normal(A.shape[0])
-    solver = AMGSolver(A, num_levels=3, dtype=jnp.float32, reorder="rcm",
-                       use_pallas=False)
+    solver = AMGSolver(A, num_levels=3, dtype=jnp.float32, reorder="rcm")
     out = solver.solve_refined(b, tol=1e-9, maxit=60)
     assert out.history.shape == (out.iterations + 1,)
     assert out.history[0] == 1.0
@@ -278,7 +277,7 @@ def test_two_prod_and_ff_residual_exact():
 def test_amg_f32_refined_beats_plain_floor():
     """On an f32 hierarchy, solve() stalls at the eps_f32*kappa floor while
     solve_refined() (ff32 outer residuals) reaches 1e-9 — the sparse analog
-    of the GMG ff32 path (documented f32 floor, VERDICT r1 item 7)."""
+    of the GMG ff32 path (the documented f32 floor)."""
     A = fd_poisson(48)  # kappa ~ (48/pi)^2 ~ 2.4e2 -> f32 floor ~ 3e-5
     rng = np.random.default_rng(0)
     b = rng.standard_normal(A.shape[0])
@@ -305,57 +304,8 @@ def test_amg_rejects_f64_without_x64():
         jax.config.update("jax_enable_x64", True)
 
 
-def test_amg_pallas_spmv_path():
-    """AMGSolver with the Pallas SpMV path (interpret mode on CPU): RCM
-    reorder is internal, results match the plain XLA path."""
-    A = fd_poisson(40)  # 1600 rows
-    rng = np.random.default_rng(7)
-    b = rng.standard_normal(A.shape[0])
-    plain = AMGSolver(A, num_levels=3, dtype=jnp.float32,
-                      smoother="chebyshev", use_pallas=False, reorder="none")
-    fast = AMGSolver(A, num_levels=3, dtype=jnp.float32,
-                     smoother="chebyshev", use_pallas=True,
-                     pallas_interpret=True, reorder="rcm",
-                     pallas_min_rows=512)
-    assert fast._perm is not None
-    assert fast.levels[0].A_fast is not None
-    tol = 1e-5
-    x_p, it_p, rel_p = plain.solve(b, tol=tol, maxit=60)
-    x_f, it_f, rel_f = fast.solve(b, tol=tol, maxit=60)
-    assert rel_f <= tol
-    # the permuted-frame solve must land on the same solution (caller frame)
-    np.testing.assert_allclose(np.asarray(x_f), np.asarray(x_p),
-                               rtol=2e-3, atol=2e-4)
-    # true residual in the caller frame
-    r = b - A.spmv(np.asarray(x_f, np.float64))
-    assert np.linalg.norm(r) / np.linalg.norm(b) < 5e-5
-
-
-def test_amg_refined_pallas_residual_path():
-    """solve_refined with the pair-mode Pallas residual kernel (interpret
-    mode): the kernel path must engage and reach below the plain-f32
-    floor, matching the gather-path result."""
-    A = fd_poisson(40)
-    rng = np.random.default_rng(11)
-    b = rng.standard_normal(A.shape[0])
-    fast = AMGSolver(A, num_levels=3, dtype=jnp.float32,
-                     smoother="chebyshev", use_pallas=True,
-                     pallas_interpret=True, reorder="rcm",
-                     pallas_min_rows=512)
-    out_f = fast.solve_refined(b, tol=1e-9, maxit=80)
-    assert fast._ell_pair_fast is not None  # kernel path engaged
-    assert out_f.rel_residual <= 1e-9
-    plain = AMGSolver(A, num_levels=3, dtype=jnp.float32,
-                      smoother="chebyshev", use_pallas=False, reorder="none")
-    out_p = plain.solve_refined(b, tol=1e-9, maxit=80)
-    # both converge to 1e-9 residual; solution agreement is bounded by
-    # kappa * tol ~ 1e-5 relative, not by the residual itself
-    np.testing.assert_allclose(np.asarray(out_f.x), np.asarray(out_p.x),
-                               rtol=1e-5, atol=1e-7)
-
-
 # ---------------------------------------------------------------------------
-# Convergence-factor regression (VERDICT r3 item 7): smoothed-P V-cycles must
+# Convergence-factor regression: smoothed-P V-cycles must
 # hold rho <~ 0.2 on the 512^2 FD system and the reference's own mesh1 FEM
 # system — the AMG analog of test_gmg_convergence's rho <= 0.15 pin.
 # Measured (seeded, deterministic): fd512/chebyshev 0.113, mesh1/chebyshev
@@ -374,7 +324,7 @@ def _solve_rho(A, b, smoother, **kw):
 
 
 def test_amg_convergence_factor_fd512():
-    """512^2 FD Poisson (262k rows), Chebyshev (the TPU default path)."""
+    """512^2 FD Poisson (262k rows), Chebyshev smoothing."""
     from multigrid_prj_tpu.models.poisson import poisson_fd_csr
 
     A = poisson_fd_csr(512)

@@ -1,8 +1,7 @@
 """Smoke tests for the benchmark harnesses (CPU, tiny sizes).
 
-These keep the hardware entry points importable and structurally correct —
-the real numbers come from running them on the chip (BENCH_r*.json,
-benchmarks/SCALING_r03.json).
+These keep the benchmark entry points importable and structurally correct;
+the real numbers come from running them on the GPU.
 """
 
 import json

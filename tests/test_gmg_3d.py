@@ -58,11 +58,10 @@ def test_mixed_precision_smoothing():
 
 def test_3d_mixed_precision_refined_solve():
     """BASELINE config 4 (CPU-sized pin): 3D 7-point, bf16 smoothing +
-    f32 residuals, ff32 outer refinement to 1e-8.  The hardware number
-    (257^3: 11 refinement iterations to 5.5e-9, 443 ms wall on v5e) is
-    recorded in BENCH_r04.json extras; this pins the iteration count and
-    tolerance at a CI-sized 33^3 so a convergence regression in the
-    mixed-precision path fails fast."""
+    f32 residuals, ff32 outer refinement to 1e-8.  The full-size 257^3
+    solve runs on the GPU in ``chip_smoke.py``; this pins the iteration
+    count and tolerance at a CI-sized 33^3 so a convergence regression in
+    the mixed-precision path fails fast."""
     n = 33
     solver = GMGSolver(shape=(n, n, n), length=1.0, alpha=1.0, num_levels=3,
                        cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=40,

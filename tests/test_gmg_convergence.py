@@ -97,7 +97,7 @@ def test_matches_reference_solution_artifact():
 
 def test_bicgstab_mg_preconditioned_converges():
     """The -smt 2 CLI path: MG-preconditioned BiCGSTAB (cli/gmg_main.py:79).
-    Regression for the hist_cap NameError ADVICE r4 flagged — every call
+    Regression for a hist_cap NameError — every call
     raised before the fix."""
     from multigrid_prj_tpu.ops.krylov import bicgstab
     from multigrid_prj_tpu.ops.stencil import poisson_apply
@@ -117,7 +117,7 @@ def test_direct_coarse_solve_matches_smoothed():
     for v/w cycles) must converge at least as fast as the 100-sweep coarse
     smoother and reach the same solution."""
     kw = dict(shape=(65, 65), num_levels=4, cycle="v", nu=2, pre_sweeps=2,
-              tol=1e-11, use_pallas=False)
+              tol=1e-11)
     b = None
     outs = {}
     for mode in ("direct", "smooth"):

@@ -1,5 +1,5 @@
 """The overlap A/B benchmark must run on the virtual CPU mesh and report
-bitwise-equal schedules (VERDICT round-1 item 4 evidence harness)."""
+bitwise-equal schedules."""
 
 import json
 

@@ -1,18 +1,15 @@
-"""Tile-aligned padded layout: logical 2^k+1 grids in padded buffers must be
-bit-identical to the exact layout, through both the XLA and Pallas paths."""
+"""Aligned padded layout: logical 2^k+1 grids in padded buffers must be
+bit-identical to the exact layout."""
 
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from multigrid_prj_tpu.gmg import GMGSolver
 from multigrid_prj_tpu.grids import build_hierarchy
 from multigrid_prj_tpu.models.poisson import assemble_rhs
-from multigrid_prj_tpu.ops import pallas_stencil as ps
-from multigrid_prj_tpu.ops import stencil as xs
 from multigrid_prj_tpu.ops.transfer import (
     crop_to,
     pad_to,
@@ -63,7 +60,7 @@ def test_padded_solve_bit_identical(cycle):
     # the same coarse iteration — the "direct" dense inverse is built on each
     # layout's own buffer, whose f64 rounding differs across layouts.
     kw = dict(shape=(65, 65), num_levels=4, cycle=cycle, nu=2, pre_sweeps=2,
-              tol=1e-11, use_pallas=False, coarse="smooth")
+              tol=1e-11, coarse="smooth")
     exact = GMGSolver(**kw)
     padded = GMGSolver(pad_align=128, **kw)
     b = assemble_rhs(exact.levels[0], 10.0, test=1, dtype=jnp.float64)
@@ -74,41 +71,3 @@ def test_padded_solve_bit_identical(cycle):
                                rtol=1e-12)
     np.testing.assert_allclose(np.asarray(oe.u), np.asarray(op.u), rtol=1e-12,
                                atol=1e-14)
-
-
-def test_pallas_logical_masks_interpret():
-    """Pallas kernels on a padded buffer with logical extents match the XLA
-    padded path (interpret mode; compiled check runs on TPU via bench)."""
-    rng = np.random.default_rng(1)
-    n, P = 65, 128
-    alpha, h = 10.0, 10.0 / (n - 1)
-    u = np.zeros((P, P), np.float32)
-    b = np.zeros((P, P), np.float32)
-    u[:n, :n] = rng.standard_normal((n, n))
-    b[:n, :n] = rng.standard_normal((n, n))
-    u, b = jnp.asarray(u), jnp.asarray(b)
-    logical = (n, n)
-    with pltpu.force_tpu_interpret_mode():
-        got_a = ps.poisson_apply(u, alpha, h, logical_shape=logical)
-        got_g = ps.red_black_gauss_seidel(u, b, alpha, h, sweeps=1,
-                                          logical_shape=logical)
-    want_a = xs.poisson_apply(u, alpha, h, logical_shape=logical)
-    from multigrid_prj_tpu.ops.smoothers import red_black_gauss_seidel
-
-    want_g = red_black_gauss_seidel(u, b, alpha, h, sweeps=1,
-                                    logical_shape=logical)
-    scale = float(jnp.abs(want_a).max())
-    assert float(jnp.abs(got_a - want_a).max()) <= 1e-6 * scale
-    assert float(jnp.abs(got_g - want_g).max()) <= 1e-5 * float(jnp.abs(want_g).max() + 1)
-
-
-def test_padded_pallas_gmg_interpret():
-    """Full padded GMG solve with the Pallas smoother (interpret mode)."""
-    with pltpu.force_tpu_interpret_mode():
-        solver = GMGSolver(shape=(65, 65), num_levels=3, cycle="v", nu=2,
-                           pre_sweeps=2, tol=5e-5, maxit=30, pad_align=64,
-                           use_pallas=True)  # 5e-5: f32 floor on this problem
-        b = assemble_rhs(solver.levels[0], 10.0, test=0, dtype=jnp.float32)
-        out = solver.solve(b)
-    assert out.converged, np.asarray(out.history)
-    assert out.u.shape == (65, 65)

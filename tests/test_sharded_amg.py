@@ -76,7 +76,7 @@ def test_sharded_amg_converges_and_matches_single_device(mesh):
     assert rel_s <= 1e-10
 
     single = AMGSolver(A, num_levels=3, smoother="chebyshev",
-                       dtype=jnp.float64, use_pallas=False, reorder="rcm")
+                       dtype=jnp.float64, reorder="rcm")
     x_1, it_1, rel_1 = single.solve(b, tol=1e-10, maxit=60)
     # identical hierarchy and smoother => same iteration count (+-1 for the
     # padded rows' no-op arithmetic) and the same solution
@@ -109,69 +109,3 @@ def test_sharded_amg_deterministic(mesh):
     x2, k2, _ = solver.solve(b)
     assert k1 == k2
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
-
-
-def test_pallas_sharded_apply_matches_gather(mesh):
-    """The Pallas local apply (per-shard banded-window kernel on the
-    haloed input) equals the jnp.take gather path — the round-3
-    composition of the SpMV kernel with shard_map."""
-    from jax import shard_map
-    from jax.experimental.pallas import tpu as pltpu
-    from jax.sharding import PartitionSpec as P
-
-    from multigrid_prj_tpu.parallel.sharded_amg import (
-        build_pallas_sharded,
-        pallas_sharded_apply,
-    )
-
-    A = fd_poisson(24)
-    Ap = A.permute(A.rcm_permutation())
-    n_pad = 576
-    m = build_sharded_ell(Ap, n_pad, n_pad, 8, jnp.float32)
-    pm = build_pallas_sharded(m, 8, jnp.float32, interpret=True)
-    assert pm is not None and pm.t_win <= 32
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal(576).astype(np.float32)
-
-    def specs(tree):
-        return jax.tree.map(
-            lambda a: P("x", *([None] * (a.ndim - 1))), tree,
-            is_leaf=lambda a: isinstance(a, jax.Array))
-
-    f = jax.jit(shard_map(
-        lambda mm, pp, xx: pallas_sharded_apply(pp, mm, xx),
-        mesh=mesh, in_specs=(specs(m), specs(pm), P("x")),
-        out_specs=P("x"),
-    ))
-    g = jax.jit(shard_map(
-        lambda mm, xx: sharded_ell_apply(mm, xx),
-        mesh=mesh, in_specs=(specs(m), P("x")), out_specs=P("x"),
-    ))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(f(m, pm, jnp.asarray(x)), np.float64)
-    want = np.asarray(g(m, jnp.asarray(x)), np.float64)
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() < 1e-6 * max(scale, 1.0)
-
-
-def test_sharded_amg_pallas_solve_matches_gather(mesh):
-    """End-to-end sharded AMG with the Pallas kernels (interpret mode):
-    same iterations and solution as the gather path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    A = fd_poisson(32)
-    rng = np.random.default_rng(5)
-    b = rng.standard_normal(A.shape[0])
-    kw = dict(num_levels=3, smoother="chebyshev", dtype=jnp.float32,
-              tol=1e-5, maxit=40, min_rows_per_shard=32)
-    sp = ShardedAMGSolver(A, mesh, use_pallas=True, pallas_interpret=True,
-                          **kw)
-    assert any(l.A_fast is not None for l in sp.sharded_levels), \
-        "Pallas layouts must actually build for this banded system"
-    with pltpu.force_tpu_interpret_mode():
-        x_p, it_p, rel_p = sp.solve(b)
-    sg = ShardedAMGSolver(A, mesh, use_pallas=False, **kw)
-    x_g, it_g, rel_g = sg.solve(b)
-    assert abs(it_p - it_g) <= 1, (it_p, it_g)
-    np.testing.assert_allclose(np.asarray(x_p), np.asarray(x_g),
-                               rtol=5e-4, atol=5e-5)

@@ -122,7 +122,7 @@ def test_ell_spmm_matches_host():
 
 
 def test_native_spgemm_matches_python_hierarchy():
-    """VERDICT r5 pin: the native Gustavson SpGEMM path must produce the
+    """Pin: the native Gustavson SpGEMM path must produce the
     same AMG hierarchy (level sizes, operator complexity, structure) as the
     pure-Python expansion path — values to the last ulp, structure exact."""
     import multigrid_prj_tpu.native as native
@@ -137,8 +137,7 @@ def test_native_spgemm_matches_python_hierarchy():
     try:
         for tag, avail in (("native", sav), ("python", lambda: False)):
             native.available = avail
-            builds[tag] = AMGSolver(A, num_levels=4, use_pallas=False,
-                                    reorder="none")
+            builds[tag] = AMGSolver(A, num_levels=4, reorder="none")
     finally:
         native.available = sav
     a, b = builds["native"], builds["python"]
